@@ -3,7 +3,7 @@ reference ray-march kernel (``shaders/importance_driven_volume_rendering.wgsl``
 lines 213-330), with real ``continue``/``break`` control flow.
 
 Deliberately written as naive Python loops, sharing no code with
-``volym_tpu`` — it exists to catch vectorisation/masking mistakes in the
+``volym`` — it exists to catch vectorisation/masking mistakes in the
 golden ``lax.scan`` renderer (SURVEY.md section 4 item 1).
 """
 
@@ -146,7 +146,7 @@ def blinn_phong(vol, p, color, cam_pos, sample_fn):
 def render_scalar(volume, importance, lut, cam, params, height, width):
     """Render (H, W, 4) with literal per-pixel loops.
 
-    ``cam`` is a volym_tpu Camera; ``params`` a RenderParams.  Uses the same
+    ``cam`` is a volym Camera; ``params`` a RenderParams.  Uses the same
     matrix builders (already unit-tested against cgmath conventions) but a
     fully independent march.
     """

@@ -1,10 +1,11 @@
 """Asset pipeline tests (reference volume.rs / importance.rs / mod.rs)."""
 
 import json
+from pathlib import Path
 
 import numpy as np
 
-from volym_tpu import assets
+from volym import assets
 
 
 def _rust_flip_3d_texture_y(data, dims):
@@ -80,8 +81,10 @@ def test_load_importance_volume(tmp_path):
 
 
 def test_segment_json_parses_reference_asset():
+    # the three segments of the reference's teapot asset that matter here
+    # (Cup 0, Ground label 4, Lobster 255; SURVEY.md section 2 row 24)
     infos = assets.load_segment_infos(
-        "/root/reference/assets/boston_teapot_256x256x178_uint8_segments.json"
+        Path(__file__).parent / "fixtures" / "teapot_segments.json"
     )
     by_name = {i.name: i for i in infos}
     assert by_name["Lobster"].importance == 255

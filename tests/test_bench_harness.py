@@ -4,8 +4,8 @@ import csv
 
 import numpy as np
 
-from volym_tpu.bench import harness
-from volym_tpu.config import BENCHMARK_PARAMS, RenderParams
+from volym.bench import harness
+from volym.config import BENCHMARK_PARAMS, RenderParams
 
 
 def test_trial_stats_match_reference_formulas():

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from volym_tpu import camera as cam_mod
-from volym_tpu.camera import Camera, CameraController
+from volym import camera as cam_mod
+from volym.camera import Camera, CameraController
 
 
 def test_orbit_matches_reference_formula():

@@ -1,6 +1,6 @@
 """CLI argument-surface tests (reference src/cli.rs:35-56 analog)."""
 
-from volym_tpu.cli import build_parser
+from volym.cli import build_parser
 
 
 def test_subcommands_exist():
@@ -31,9 +31,9 @@ def test_debug_flag_both_positions():
 
 def test_renderer_and_shading_flags():
     args = build_parser().parse_args(
-        ["screenshot", "--renderer", "slab_pallas", "--no-shading", "--interpolation", "trilinear"]
+        ["screenshot", "--renderer", "slab", "--no-shading", "--interpolation", "trilinear"]
     )
-    assert args.renderer == "slab_pallas"
+    assert args.renderer == "slab"
     assert args.no_shading
     assert args.interpolation == "trilinear"
 

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from volym_tpu import Camera, RenderParams, Scene
-from volym_tpu.render import debug_vis
+from volym import Camera, RenderParams, Scene
+from volym.render import debug_vis
 
 
 def test_importance_debug_colors():

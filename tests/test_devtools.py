@@ -4,7 +4,7 @@ import json
 
 import numpy as np
 
-from volym_tpu import devtools
+from volym import devtools
 
 HEADER = b"""NRRD0004
 # Complete NRRD file format specification at:
@@ -51,7 +51,7 @@ def test_split_payload(tmp_path):
 
 
 def test_split_payload_python_fallback(tmp_path, monkeypatch):
-    import volym_tpu.native as native
+    import volym.native as native
 
     monkeypatch.setattr(native, "available", lambda: False)
     p, payload = _write_nrrd(tmp_path)

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from volym_tpu import Camera, RenderParams, Scene
-from volym_tpu.render import diff, golden
+from volym import Camera, RenderParams, Scene
+from volym.render import diff, golden
 
 SIDE = 16
 RES = 8
@@ -109,7 +109,7 @@ def test_camera_grads_match_autodiff(scene, cam):
     m = cam.matrices()
 
     def loss_from_pos(render_fn, pos):
-        from volym_tpu.camera import camera_matrices
+        from volym.camera import camera_matrices
 
         mm = camera_matrices(
             pos,

@@ -30,7 +30,7 @@ def _free_port() -> int:
 
 def test_two_process_fit_matches_single(tmp_path):
     port = _free_port()
-    from volym_tpu.parallel import launch
+    from volym.parallel import launch
 
     procs, outs = [], []
     for pid in range(2):
@@ -82,8 +82,8 @@ def test_two_process_fit_matches_single(tmp_path):
     # (8 devices via conftest).  Identical math up to psum reduction order.
     import jax.numpy as jnp
 
-    from volym_tpu import Camera, RenderParams, Scene
-    from volym_tpu.render import slab
+    from volym import Camera, RenderParams, Scene
+    from volym.render import slab
 
     scene = Scene.synthetic("sphere", side=16)
     m = Camera(aspect=1.0, distance=1.1).orbit(25.0, 10.0, 0.0).matrices()

@@ -2,7 +2,7 @@
 raw volume + segments pair written to DISK, loaded through ``Scene.load``
 (the reference's actual startup path, ``src/demos/simple/mod.rs:36-110``
 -> ``volume.rs:35-101`` / ``importance.rs:45-137``), rendered through the
-CLI ``run --volume ... --renderer slab_pallas`` to a PNG — with the
+CLI ``run --volume ... --renderer slab`` to a PNG — with the
 native C++ loader (``native/volym_io.cpp``) built and asserted
 byte-identical to the NumPy fallback when a toolchain is present.
 """
@@ -14,7 +14,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from volym_tpu import assets
+from volym import assets
 
 SIDE = 32
 
@@ -44,7 +44,7 @@ def asset_dir(tmp_path_factory):
 
 
 def test_scene_load_from_disk(asset_dir):
-    from volym_tpu.scene import Scene
+    from volym.scene import Scene
 
     scene = Scene.load(
         asset_dir / "teapot.raw",
@@ -60,8 +60,8 @@ def test_scene_load_from_disk(asset_dir):
 
 def test_cli_run_volume_to_png(asset_dir, tmp_path, monkeypatch):
     """CLI --volume -> Scene.load -> orbit render -> PNG on disk, through
-    the production backend selector (slab_pallas; jnp fallback on CPU)."""
-    from volym_tpu import cli
+    the slab backend."""
+    from volym import cli
 
     monkeypatch.chdir(tmp_path)
     rc = cli.main(
@@ -73,7 +73,7 @@ def test_cli_run_volume_to_png(asset_dir, tmp_path, monkeypatch):
             "--side", str(SIDE),
             "--width", "32", "--height", "32",
             "--frames", "2",
-            "--renderer", "slab_pallas",
+            "--renderer", "slab",
             "--interpolation", "trilinear",
         ]
     )
@@ -88,8 +88,8 @@ def test_native_loader_matches_numpy_fallback(asset_dir):
     """Build libvolym_io.so and assert the native volume/importance
     loaders return byte-identical arrays to the NumPy implementations —
     the CI coverage the native path lacked (round-3 weak item 6)."""
-    from volym_tpu import native
-    from volym_tpu.native import build
+    from volym import native
+    from volym.native import build
 
     build.build(verbose=False)
     # reset the lazy handle (incl. the cached load failure from before the

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from volym_tpu import Camera, RenderParams, Scene
-from volym_tpu.render import fast, golden
+from volym import Camera, RenderParams, Scene
+from volym.render import fast, golden
 
 RES = 16
 

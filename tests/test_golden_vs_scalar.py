@@ -8,8 +8,8 @@ adaptive stepping, look-ahead) exactly.
 import numpy as np
 import pytest
 
-from volym_tpu import Camera, RenderParams, Scene
-from volym_tpu.render import golden
+from volym import Camera, RenderParams, Scene
+from volym.render import golden
 
 from reference_scalar import render_scalar
 

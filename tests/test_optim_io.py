@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from volym_tpu import Camera, RenderParams, Scene
-from volym_tpu import io as vio
-from volym_tpu.optim import fit_scene
-from volym_tpu.render import golden
+from volym import Camera, RenderParams, Scene
+from volym import io as vio
+from volym.optim import fit_scene
+from volym.render import golden
 
 PARAMS = RenderParams(
     use_gaussian_smoothing=False,

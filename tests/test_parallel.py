@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from volym_tpu import Camera, RenderParams, Scene
-from volym_tpu.parallel import mesh as pmesh
-from volym_tpu.render import diff, golden
+from volym import Camera, RenderParams, Scene
+from volym.parallel import mesh as pmesh
+from volym.render import diff, golden
 
 PARAMS = RenderParams(
     use_gaussian_smoothing=False,
@@ -84,7 +84,7 @@ def test_train_step_grads_match_psum_of_local(scene, cam):
 
 
 def test_sharded_slab_matches_single(scene, cam):
-    from volym_tpu.render import slab
+    from volym.render import slab
 
     m = cam.matrices()
     mesh = pmesh.make_mesh()
@@ -94,27 +94,12 @@ def test_sharded_slab_matches_single(scene, cam):
     np.testing.assert_allclose(a, b, atol=1e-6)
 
 
-def test_sharded_slab_pallas_plumbing_matches(scene, cam):
-    """backend='slab_pallas' (jnp fallback on the CPU mesh, same sharding
-    code) must equal the single-device slab render."""
-    from volym_tpu.render import slab
-
-    m = cam.matrices()
-    mesh = pmesh.make_mesh()
-    params = PARAMS.replace(use_shading=False)
-    a = np.asarray(
-        pmesh.render_sharded(scene, m, params, RES, RES, mesh, backend="slab_pallas")
-    )
-    b = np.asarray(slab.render(scene, m, params, RES, RES))
-    np.testing.assert_allclose(a, b, atol=1e-6)
-
-
-@pytest.mark.parametrize("backend", ["slab", "slab_pallas"])
+@pytest.mark.parametrize("backend", ["slab"])
 @pytest.mark.parametrize("shading", [False, True])
 def test_train_step_slab_backends(scene, cam, backend, shading):
     """Sharded slab train step: grads equal the unsharded slab replay
     (base and Blinn-Phong-shaded modes)."""
-    from volym_tpu.render import slab
+    from volym.render import slab
 
     m = cam.matrices()
     mesh = pmesh.make_mesh()
@@ -148,7 +133,7 @@ def test_host_mesh_shape():
 
 
 def test_launch_env_parsing():
-    from volym_tpu.parallel import launch
+    from volym.parallel import launch
 
     assert launch.init_kwargs_from_env({}) == {}
     env = {
@@ -169,7 +154,7 @@ def test_launch_env_parsing():
 
 def test_scaling_table_on_virtual_mesh(scene, cam):
     """The scaling harness emits TrialResults-schema rows with efficiency."""
-    from volym_tpu.bench import harness
+    from volym.bench import harness
 
     rows = harness.scaling_table(
         scene, cam.matrices(), PARAMS, RES, RES,
@@ -188,9 +173,9 @@ def test_fit_distributed_loop_runs(scene, cam):
     """Host-mesh training loop: loss decreases over a few sharded steps."""
     import jax.numpy as jnp
 
-    from volym_tpu.parallel import launch
-    from volym_tpu.render import slab
-    from volym_tpu.scene import Scene as S
+    from volym.parallel import launch
+    from volym.render import slab
+    from volym.scene import Scene as S
 
     m = cam.matrices()
     fixed = PARAMS.replace(adaptive_stepping=False, use_shading=False)
@@ -201,7 +186,7 @@ def test_fit_distributed_loop_runs(scene, cam):
         tf_lut=scene.tf_lut,
     )
     fitted, losses = launch.fit_distributed(
-        init, m, target, fixed, steps=5, lr=0.05, backend="slab_pallas",
+        init, m, target, fixed, steps=5, lr=0.05, backend="slab",
     )
     assert losses[-1] < losses[0]
 
@@ -219,7 +204,7 @@ def _lookahead_scene():
     )
 
 
-@pytest.mark.parametrize("backend", ["slab", "slab_pallas"])
+@pytest.mark.parametrize("backend", ["slab"])
 @pytest.mark.parametrize(
     "mode",
     [
@@ -228,9 +213,9 @@ def _lookahead_scene():
     ],
 )
 def test_sharded_slab_modes_match_single(cam, backend, mode):
-    """Smoothing and importance look-ahead run sharded (all slab backends)
-    and match the single-device slab render exactly."""
-    from volym_tpu.render import slab
+    """Smoothing and importance look-ahead run sharded and match the
+    single-device slab render exactly."""
+    from volym.render import slab
 
     sc = _lookahead_scene()
     m = cam.matrices()
@@ -253,12 +238,12 @@ def test_sharded_slab_modes_match_single(cam, backend, mode):
         assert np.abs(b - base).max() > 0.05
 
 
-@pytest.mark.parametrize("backend", ["slab", "slab_pallas"])
+@pytest.mark.parametrize("backend", ["slab"])
 @pytest.mark.parametrize("mode", ["smoothing", "lookahead"])
 def test_train_step_slab_modes(cam, backend, mode):
     """Sharded slab train step under smoothing / look-ahead: grads equal
     the unsharded slab replay VJP."""
-    from volym_tpu.render import slab
+    from volym.render import slab
 
     sc = _lookahead_scene()
     m = cam.matrices()

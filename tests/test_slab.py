@@ -1,7 +1,6 @@
-"""Slab-marching renderer tests: scalar oracle, replay-VJP gradients, and
-the Pallas kernel in interpreter mode (SURVEY.md section 4 items 1-3)."""
+"""Slab-marching renderer tests: scalar oracle and replay-VJP gradients
+(SURVEY.md section 4 items 1-3)."""
 
-import math
 from functools import partial
 
 import jax
@@ -9,8 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from volym_tpu import Camera, RenderParams, Scene
-from volym_tpu.render import slab
+import slab_oracle
+from volym import Camera, RenderParams, Scene
+from volym.render import slab
 
 SIDE = 16
 RES = 8
@@ -35,112 +35,11 @@ def cam():
 
 
 def _scalar_slab_render(vol, lut, cam, params, height, width, imp=None):
-    """Independent per-pixel slab-march oracle (python loops).
-
-    ``imp`` enables the slab-native (continuum) importance look-ahead:
-    skip non-opaque samples when any important slab crossing lies strictly
-    ahead within the reference's quirky probe range."""
-    m = cam.matrices()
-    major, sign = slab.dominant_axis(m)
-    ivp = np.asarray(m.inverse_view_proj, np.float32)
-    cp = np.asarray(m.position, np.float32)
-    n = vol.shape[0]
-    comps = {2: (1, 0), 1: (2, 0), 0: (1, 2)}[major]
-
-    def bilin(sl2d, rc, cc):
-        # clamp then subtexel-snap, exactly the implementation's coordinate
-        # pipeline (slab_kernel._coords / render.slab sampling) — without
-        # the snap the oracle quantizes differently at ~2^-9-texel scale
-        rc = slab.snap_np(min(max(rc, 0.0), sl2d.shape[0] - 1.0), params.subtexel_bits)
-        cc = slab.snap_np(min(max(cc, 0.0), sl2d.shape[1] - 1.0), params.subtexel_bits)
-        r0, c0 = int(np.floor(rc)), int(np.floor(cc))
-        r1, c1 = min(r0 + 1, sl2d.shape[0] - 1), min(c0 + 1, sl2d.shape[1] - 1)
-        tr, tc = rc - r0, cc - c0
-        return (
-            sl2d[r0, c0] * (1 - tr) * (1 - tc)
-            + sl2d[r0, c1] * (1 - tr) * tc
-            + sl2d[r1, c0] * tr * (1 - tc)
-            + sl2d[r1, c1] * tr * tc
-        )
-
-    vol_perm = np.transpose(vol, slab._AXIS_LAYOUT[major][0])
-    imp_perm = (
-        np.transpose(imp, slab._AXIS_LAYOUT[major][0]) if imp is not None else None
-    )
-
-    def nearest(sl2d, rc, cc):
-        rc = slab.snap_np(min(max(rc, 0.0), sl2d.shape[0] - 1.0), params.subtexel_bits)
-        cc = slab.snap_np(min(max(cc, 0.0), sl2d.shape[1] - 1.0), params.subtexel_bits)
-        r = int(np.clip(np.floor(rc + 0.5), 0, sl2d.shape[0] - 1))
-        c = int(np.clip(np.floor(cc + 0.5), 0, sl2d.shape[1] - 1))
-        return sl2d[r, c]
-
-    img = np.zeros((height, width, 4), np.float32)
-    for py in range(height):
-        for px in range(width):
-            ndc = np.array([px / width * 2 - 1, 1 - py / height * 2, 0, 1], np.float32)
-            world = ivp @ ndc
-            d = world[:3] / world[3] - cp
-            d = d / np.linalg.norm(d)
-            with np.errstate(divide="ignore"):
-                t1 = (0 - cp) / d
-                t2 = (1 - cp) / d
-            entry = max(float(np.max(np.minimum(t1, t2))), 0.0)
-            exit_ = max(float(np.min(np.maximum(t1, t2))), 0.0)
-            if exit_ <= entry:
-                img[py, px] = (0, 0, 0, 1)
-                continue
-            if d[major] * sign <= 0:
-                continue
-            dt = (1.0 / n) / abs(d[major])
-            ks_list = list(range(n) if sign > 0 else range(n - 1, -1, -1))
-            ahead = [False] * n
-            if imp_perm is not None:
-                # reverse pass: next important march step, then the range test
-                hit = []
-                for k in ks_list:
-                    z = (k + 0.5) / n
-                    t = (z - cp[major]) / d[major]
-                    rc = (cp[comps[0]] + t * d[comps[0]]) * n - 0.5
-                    cc = (cp[comps[1]] + t * d[comps[1]]) * n - 0.5
-                    hit.append(
-                        (entry <= t < exit_)
-                        and nearest(imp_perm[k], rc, cc) >= 0.5
-                    )
-                ns = [np.inf] * (n + 1)
-                for mi in reversed(range(n)):
-                    ns[mi] = mi if hit[mi] else ns[mi + 1]
-                for mi, k in enumerate(ks_list):
-                    z = (k + 0.5) / n
-                    t = (z - cp[major]) / d[major]
-                    m_end = mi + (exit_ - np.linalg.norm(cp + t * d)) / dt
-                    ahead[mi] = ns[mi + 1] <= m_end
-            acc_c, acc_a = np.zeros(3), 0.0
-            for mi, k in enumerate(ks_list):
-                z = (k + 0.5) / n
-                t = (z - cp[major]) / d[major]
-                if not (entry <= t < exit_) or acc_a >= 0.95:
-                    continue
-                rc = (cp[comps[0]] + t * d[comps[0]]) * n - 0.5
-                cc = (cp[comps[1]] + t * d[comps[1]]) * n - 0.5
-                dens = bilin(vol_perm[k], rc, cc)
-                if dens < params.density_threshold:
-                    continue
-                if imp_perm is not None:
-                    imp_here = nearest(imp_perm[k], rc, cc)
-                    if imp_here < 1.0 and ahead[mi]:
-                        continue
-                c = min(max(dens * 256 - 0.5, 0.0), 255.0)
-                i0 = int(math.floor(c))
-                i1 = min(i0 + 1, 255)
-                frac = c - i0
-                rgba = lut[i0] * (1 - frac) + lut[i1] * frac
-                alpha = 1.0 - (1.0 - rgba[3]) ** (dt * 100.0)
-                w = (1.0 - acc_a) * alpha
-                acc_c = acc_c + rgba[:3] * w
-                acc_a += w
-            img[py, px] = (*acc_c, acc_a)
-    return img
+    """The NumPy slab oracle (tests/slab_oracle.py); ``imp`` defaults to
+    an all-zero importance grid."""
+    if imp is None:
+        imp = np.zeros_like(vol)
+    return slab_oracle.render(vol, imp, lut, cam, params, height, width)
 
 
 def test_slab_golden_matches_scalar(scene, cam):
@@ -179,7 +78,7 @@ def _lookahead_scene():
     imp = np.zeros((side, side, side), np.float32)
     vol[10:13, 4:12, 4:12] = 0.9
     imp[10:13, 4:12, 4:12] = 1.0  # importance 255/255 -> opaque-important
-    from volym_tpu.scene import Scene as S
+    from volym.scene import Scene as S
 
     return S(
         volume=jnp.asarray(vol),
@@ -234,7 +133,7 @@ def test_slab_smoothing_constant_volume_exact(cam):
     (masked-tap renormalisation included)."""
     side = 16
     vol = np.full((side, side, side), 0.5, np.float32)
-    from volym_tpu.scene import Scene as S
+    from volym.scene import Scene as S
 
     sc = S(
         volume=jnp.asarray(vol),
@@ -264,8 +163,8 @@ def test_smoothed_densities_matches_loop_oracle(scene, cam):
     of the slab-stencil spec, for a few (step, ray) entries."""
     import math
 
-    from volym_tpu.render import rays as rays_mod
-    from volym_tpu.render.golden import (
+    from volym.render import rays as rays_mod
+    from volym.render.golden import (
         GAUSSIAN_KERNEL_SIZE,
         GAUSSIAN_SIGMA,
         GAUSSIAN_STEP,
@@ -350,8 +249,8 @@ def test_smoothed_densities_matches_loop_oracle(scene, cam):
 def test_gradient_volume_matches_reference_estimator(scene):
     """gradient_volume at voxel centres == central differences of the
     trilinear field at +-GRADIENT_OFFSET (the wgsl:181-188 stencil)."""
-    from volym_tpu.ops import interp
-    from volym_tpu.render.shading import GRADIENT_OFFSET
+    from volym.ops import interp
+    from volym.render.shading import GRADIENT_OFFSET
 
     g = np.asarray(slab.gradient_volume(scene.volume))
     n = scene.volume.shape[0]
@@ -378,7 +277,7 @@ def test_slab_replay_vjp_matches_autodiff(scene, cam):
     """The replay backward must equal plain autodiff through march_slabs."""
     m = cam.matrices()
     major, sign = slab.dominant_axis(m)
-    from volym_tpu.render import rays as rays_mod
+    from volym.render import rays as rays_mod
 
     origin, dirs = rays_mod.generate_rays(m, RES, RES)
     entry, exit_ = rays_mod.ray_box_intersection(origin, dirs)
@@ -410,7 +309,7 @@ def test_slab_camera_grads(scene, cam):
     """Slab replay VJP propagates to ray origin/directions."""
     m = cam.matrices()
     major, sign = slab.dominant_axis(m)
-    from volym_tpu.render import rays as rays_mod
+    from volym.render import rays as rays_mod
 
     origin, dirs = rays_mod.generate_rays(m, RES, RES)
     entry, exit_ = rays_mod.ray_box_intersection(origin, dirs)
@@ -432,26 +331,12 @@ def test_slab_camera_grads(scene, cam):
     assert np.abs(np.asarray(g_auto[1])).max() > 0
 
 
-@pytest.mark.skipif(
-    jax.devices()[0].platform != "tpu",
-    reason="Pallas interpret mode is orders of magnitude too slow for CI; "
-    "the kernel is validated on hardware by scripts/validate_slab_tpu.py",
-)
-def test_pallas_slab_on_tpu(scene, cam):
-    from volym_tpu.ops import slab_kernel
-
-    m = cam.matrices()
-    g = np.asarray(slab.render(scene, m, PARAMS, RES, RES))
-    p = np.asarray(slab_kernel.render(scene, m, PARAMS, RES, RES))
-    np.testing.assert_allclose(p, g, atol=5e-3)
-
-
 def test_slab_shading_vjp_matches_autodiff(scene, cam):
     """Shaded replay VJP == plain autodiff through march_slabs (incl. the
     gradient-field cotangent and the chain back to the volume)."""
     m = cam.matrices()
     major, sign = slab.dominant_axis(m)
-    from volym_tpu.render import rays as rays_mod
+    from volym.render import rays as rays_mod
 
     params = PARAMS.replace(use_shading=True)
     origin, dirs = rays_mod.generate_rays(m, RES, RES)
@@ -495,7 +380,7 @@ def test_slab_render_diff_shading_runs(scene, cam):
     np.testing.assert_allclose(b, a, atol=1e-6)
 
     def loss(vol):
-        from volym_tpu.scene import Scene as S
+        from volym.scene import Scene as S
 
         img = slab.render_diff(
             S(vol, scene.importance, scene.tf_lut), m, params, RES, RES
@@ -513,7 +398,7 @@ def test_slab_smoothing_vjp_matches_autodiff(scene, cam, interp):
     (density chained through smoothed_densities)."""
     m = cam.matrices()
     major, sign = slab.dominant_axis(m)
-    from volym_tpu.render import rays as rays_mod
+    from volym.render import rays as rays_mod
 
     params = PARAMS.replace(use_gaussian_smoothing=True, interpolation=interp)
     origin, dirs = rays_mod.generate_rays(m, RES, RES)
@@ -546,9 +431,9 @@ def test_slab_smoothing_vjp_matches_autodiff(scene, cam, interp):
 def test_slab_lookahead_vjp_matches_autodiff(cone):
     """Look-ahead replay VJP == plain autodiff through march_slabs (the
     gate is comparisons-only, so grads flow through unskipped samples)."""
-    from volym_tpu import Camera
-    from volym_tpu.render import rays as rays_mod
-    from volym_tpu.scene import Scene as S
+    from volym import Camera
+    from volym.render import rays as rays_mod
+    from volym.scene import Scene as S
 
     side = 16
     vol = np.full((side, side, side), 0.45, np.float32)
@@ -648,7 +533,7 @@ def test_step_size_changes_slab_render(scene, cam):
     assert np.abs(a - b).max() > 1e-3  # real sampling-rate change
 
     def loss(vol):
-        from volym_tpu.scene import Scene as S
+        from volym.scene import Scene as S
 
         s = S(volume=vol, importance=scene.importance, tf_lut=scene.tf_lut)
         img = slab.render_diff(s, m, coarse, RES, RES)

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from volym_tpu.transfer_function import (
+from volym.transfer_function import (
     ControlPoint,
     TransferFunction,
     lut_sample,

@@ -1,5 +1,5 @@
 """Interactive viewer endpoint tests (no browser; the server is stateless
-so /frame is directly drivable — see volym_tpu/viewer.py)."""
+so /frame is directly drivable — see volym/viewer.py)."""
 
 import io
 import json
@@ -9,8 +9,8 @@ import urllib.request
 import numpy as np
 import pytest
 
-from volym_tpu import RenderParams, Scene
-from volym_tpu import viewer
+from volym import RenderParams, Scene
+from volym import viewer
 
 RES = 16
 PARAMS = RenderParams(
@@ -68,7 +68,7 @@ def test_frame_endpoint_renders(server):
     assert len(r.headers["X-Camera-Pos"].split(",")) == 3
 
 
-@pytest.mark.parametrize("backend", ["slab", "slab_pallas"])
+@pytest.mark.parametrize("backend", ["slab"])
 def test_frame_slab_backends(server, backend):
     srv, _ = server
     with _get(srv, f"/frame?h=10&v=5&dist=1.1&renderer={backend}") as r:
@@ -109,6 +109,23 @@ def test_screenshot_endpoint(server):
     with _get(srv, "/screenshot?h=0&v=0&dist=1.2&renderer=ray") as r:
         meta = json.loads(r.read())
     assert (shots / meta["path"].split("/")[-1]).exists()
+
+
+@pytest.mark.parametrize("backend", ["pallas", "nope"])
+def test_frame_unknown_backend_400(server, backend):
+    srv, _ = server
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _get(srv, f"/frame?renderer={backend}")
+    assert e.value.code == 400
+    assert b"unknown renderer backend" in e.value.read()
+
+
+def test_page_offers_only_live_backends(server):
+    srv, _ = server
+    with _get(srv, "/") as r:
+        body = r.read().decode()
+    assert 'value="ray"' in body and 'value="slab"' in body
+    assert body.count("<option value=") == 2 and "fast_math" not in body
 
 
 def test_unknown_path_404(server):
